@@ -7,12 +7,13 @@ status messages and exit codes, same artifact family.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from bensolve_tpu.algs.solution import SolStatus
 from bensolve_tpu.vlp.options import Alg, Format, LPMethod, Options
 
-WELCOME = "bensolve-tpu: VLP solver\n"
+WELCOME = "bensolve: VLP solver\n"
 USAGE = "Usage: bensolve [filename] [options]\n"
 
 
@@ -48,9 +49,9 @@ def _build_parser() -> argparse.ArgumentParser:
                    default="primal")
     p.add_argument("--eps_phase1", "-E", type=float, default=1e-7)
     p.add_argument("--eps_phase2", "-e", type=float, default=1e-7)
-    # TPU-build extension: LP arithmetic precision (float32 = native TPU
-    # arithmetic, pair with loose epsilons as the reference itself
-    # recommends for ex07/ex09, ex/example07.m:9)
+    # extension: LP arithmetic precision (float32: pair with loose
+    # epsilons, as the reference itself recommends for its large
+    # instances, ex/example07.m:9)
     p.add_argument("--lp_dtype", choices=["float64", "float32"],
                    default="float64")
     return p
@@ -94,7 +95,7 @@ def main(argv: list[str] | None = None) -> int:
         lp_dtype=args.lp_dtype,
     )
     if not opt.filename:
-        opt.filename = args.filename.split(".")[0]
+        opt.filename = os.path.splitext(args.filename)[0]
 
     if opt.message_level >= 1:
         print(WELCOME, end="")

@@ -6,6 +6,7 @@ transforms -> output, with status short-circuits.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -115,9 +116,7 @@ def _count(sol, pair, swap: bool) -> None:
 
 def _ensure_compile_cache() -> None:
     """Persistent compilation cache (see lp.ensure_compile_cache):
-    without it every fresh process pays minutes-long remote compiles —
-    exactly the round-3 'solver prints nothing for 10 minutes' failure
-    mode."""
+    without it every fresh process recompiles every device program."""
     from bensolve_tpu.lp import ensure_compile_cache
 
     ensure_compile_cache()
@@ -259,7 +258,7 @@ def solve_file(path: str, opt: Options | None = None) -> VLPSolution:
 
     opt = opt if opt is not None else Options()
     if not opt.filename:
-        opt.filename = path.split(".")[0]
+        opt.filename = os.path.splitext(path)[0]
     vlp = read_vlp(path)
     result = solve(vlp, opt)
     base = opt.filename

@@ -370,17 +370,15 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
 
     ``warm_mode``: "per_candidate" warm-starts every LP from its parent
     basis (_FacetWarm), "shared" keeps only the template's carried
-    basis, "auto" picks per-candidate unless the batch routes to the
-    Pallas kernel (which broadcasts ONE starting tableau) or runs
-    distributed (remote bases are not gathered)."""
+    basis, "auto" picks per-candidate unless the round runs distributed
+    (remote bases are not gathered)."""
     P = pair.primal
     q = sol.q
     ZR = sol.Z if phase1 else sol.R
     m = t2.m
     warm = _FacetWarm(
         warm_mode == "per_candidate"
-        or (warm_mode == "auto" and not distributed
-            and not t2.prefers_shared_warm()))
+        or (warm_mode == "auto" and not distributed))
     deferrals: dict[int, int] = {}
     while True:
         frontier = P.frontier()
@@ -765,8 +763,7 @@ def _benson_dual_loop(pair: PolytopePair, t1: P1Template,
     q = sol.q
     warm = _FacetWarm(
         warm_mode == "per_candidate"
-        or (warm_mode == "auto" and not distributed
-            and not t1.prefers_shared_warm()))
+        or (warm_mode == "auto" and not distributed))
     while True:
         frontier = P.frontier()
         if frontier.size == 0:

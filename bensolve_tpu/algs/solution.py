@@ -24,7 +24,7 @@ class SolStatus(enum.Enum):
     NOVERTEX = "no vertex"
     OPTIMAL = "optimal"
     INPUTERROR = "input error"
-    ERROR = "error"   # numeric/iteration-limit LP failure (TPU-build
+    ERROR = "error"   # numeric/iteration-limit LP failure (batched-build
     #   extension: the reference asserts and aborts on unexpected LP
     #   statuses, bslv_algs.c:879; batch engines report instead)
 

@@ -242,20 +242,6 @@ class _TemplateBase:
                   f"warm={'yes' if warm is not None else 'no'}")
         return res
 
-    def prefers_shared_warm(self) -> bool:
-        """True when per-candidate (B, M) warm bases would knock the
-        batch off its best backend: the Pallas kernel only takes a
-        shared basis (it broadcasts ONE starting tableau into VMEM).
-        When the dual-simplex warm re-solve route applies, per-candidate
-        parent bases are strictly better (each instance restarts dual
-        feasible), so shared mode is never preferred."""
-        from bensolve_tpu.lp import _pallas_eligible
-
-        if self._use_dual_warm(warm=True):
-            return False
-        M, N = self.A_lp.shape
-        return _pallas_eligible(M, N, {"dtype": self.dtype})
-
     def _alloc_lp_matrix(self, extra_rows: int, extra_cols: int):
         """Preallocated LP matrix with the shared VLP blocks filled in:
         rows [A 0 ...], [-P I ...]; the caller fills the extra rows.

@@ -3,18 +3,19 @@ the MATLAB scripts ex/example01.m .. example11.m, which form the
 project's acceptance behavior matrix (SURVEY.md section 4).
 
 example07 and example09 are data-driven in the reference (their raw
-matrices ship only inside ex07.vlp / ex09.vlp); their generators load
-the .vlp files instead.
+matrices ship only inside the reference's .vlp files), so they have no
+generator here.  ``load``/``write_suite`` give the others exactly as a
+.vlp file would: generated, written in the .vlp grammar, read back.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from bensolve_tpu.vlp.problem import VLPProblem
 from bensolve_tpu.vlp.reader import read_vlp
-
-REFERENCE_EX = "/root/reference/ex"
 
 
 def example01() -> VLPProblem:
@@ -66,12 +67,6 @@ def example06() -> VLPProblem:
         opt_dir=-1)
 
 
-def example07() -> VLPProblem:
-    """Large radiotherapy MOLP (Shao-Ehrgott); data ships only inside
-    ex07.vlp.  Recommended flags: -e 0.05 (ex/example07.m:9)."""
-    return read_vlp(f"{REFERENCE_EX}/ex07.vlp")
-
-
 def example08() -> VLPProblem:
     """Unbounded but not totally unbounded; solution has points AND
     directions (ex/example08.m)."""
@@ -80,12 +75,6 @@ def example08() -> VLPProblem:
         P=[[1, 0], [0, 1]],
         Y=np.array([[-1, 1.5], [3, -1]]).T,
         c=[0, 1])
-
-
-def example09() -> VLPProblem:
-    """Huge VLP (Hamel-Loehne-Rudloff Ex. 6.6); data ships only inside
-    ex09.vlp.  Recommended flags: -e 1e-2 (ex/example09.m:10)."""
-    return read_vlp(f"{REFERENCE_EX}/ex09.vlp")
 
 
 def example10(q: int = 3, m: int = 2) -> VLPProblem:
@@ -143,6 +132,30 @@ def random_vlp(q: int = 5, m: int = 1000, n: int = 2000,
         A=A, b=a, P=P, l=np.zeros(n), s=np.full(n, 10.0))
 
 
-ALL = {f"example{i:02d}": fn for i, fn in enumerate(
-    [example01, example02, example03, example04, example05, example06,
-     example07, example08, example09, example10, example11], start=1)}
+ALL = {fn.__name__: fn for fn in
+       [example01, example02, example03, example04, example05, example06,
+        example08, example10, example11]}
+# file stems of the reference's ex/exNN.vlp
+NAMES = tuple(f"ex{name[-2:]}" for name in ALL)
+
+
+def generate(name: str) -> VLPProblem:
+    """Example ``name`` ("ex01" .. "ex11") from its generator."""
+    return ALL[f"example{name[-2:]}"]()
+
+
+def load(name: str) -> VLPProblem:
+    """Example ``name`` as read back from its .vlp text."""
+    from bensolve_tpu.vlp.writer import vlp_text
+
+    return read_vlp(vlp_text(generate(name)), is_text=True)
+
+
+def write_suite(directory: str) -> str:
+    """Write every generated example as ``directory``/exNN.vlp."""
+    from bensolve_tpu.vlp.writer import write_vlp
+
+    os.makedirs(directory, exist_ok=True)
+    for name in NAMES:
+        write_vlp(generate(name), os.path.join(directory, f"{name}.vlp"))
+    return directory

@@ -124,7 +124,7 @@ def write_log(path: str, *, problem_file: str, vlp, sol, opt, time_ms: float,
                 LPMethod.AUTO: "auto"}[mth]
 
     lines = [
-        "BENSOLVE-TPU: VLP solver",
+        "BENSOLVE: VLP solver",
         "Problem parameters",
         f"  problem file:      {problem_file}",
         f"  problem rows:      {vlp.m:7d}",

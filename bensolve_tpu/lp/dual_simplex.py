@@ -2,7 +2,7 @@
 
 The reference maps -k/-L/-l onto GLPK's primal/dual simplex with a
 dual->primal retry (bslv_lp.c:153-217, GLP_DUALP at :190-192, retry in
-lp_solve :219-259).  This module is the TPU-native counterpart: the
+lp_solve :219-259).  This module is the batched device counterpart: the
 same lockstep tableau state as lp/simplex.py, but pivots chosen by the
 dual rules — leaving row first (most primal-infeasible basic), entering
 column by the dual ratio test that preserves sign-feasible reduced
@@ -183,8 +183,8 @@ def _dual_start_from_state_jit(A, c, lb, ub, basis_s, in_basis_s,
 @functools.partial(jax.jit, static_argnames=("seg",))
 def _dual_run_jit(A, c, lb, ub, st, seg, max_iter):
     """Advance the dual pivot loop by at most ``seg`` steps — same
-    segmentation contract as simplex._tableau_run_jit (one unbounded
-    device program at P2-bench scale crashes the TPU worker)."""
+    segmentation contract as simplex._tableau_run_jit (short device
+    programs, progress visible to the host between segments)."""
     seg_end = jnp.minimum(st.step + seg, max_iter)
 
     def cond(s):

@@ -1,20 +1,14 @@
-"""Batched dense LU with partial pivoting, in pure lax ops.
+"""Dense LU with partial pivoting for the simplex endgame.
 
-XLA's built-in LuDecomposition custom-call supports only f32/c64 on
-TPU, so ``jax.scipy.linalg.lu_factor`` cannot factorize the float64
-basis matrices the simplex endgame needs (GLPK-grade 1e-9 tolerances,
-SURVEY.md section 7 "hard parts" #1).  This module provides the same
-(factor, solve) contract built from ordinary arithmetic — gathers,
-rank-1 updates, triangular substitution under ``lax.fori_loop`` — which
-lowers on every backend and every dtype, including TPU-emulated f64.
-
-Shapes follow the scipy convention: ``lu_factor`` returns (LU, piv)
-where row k of the factorization was swapped with row piv[k].
+``lu_factor``/``lu_solve`` follow the scipy contract and call
+``jax.scipy.linalg`` on every backend (LAPACK on the CPU, cuSOLVER and
+cuBLAS on the GPU, float64 included).  The one addition is a clamp of
+numerically singular pivots, so that a singular basis yields finite
+output instead of inf/nan.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsl
 
@@ -24,134 +18,24 @@ def _tiny(dtype):
                        else 1e-20, dtype)
 
 
-def _use_native(dtype) -> bool:
-    """XLA's built-in LuDecomposition is available (and far faster —
-    blocked, not an M-step rank-1 loop) for every dtype except float64
-    on TPU.  The custom loop below exists only for that case."""
-    if jnp.dtype(dtype) != jnp.dtype(jnp.float64):
-        return True
-    return jax.default_backend() != "tpu"
-
-
 def lu_factor(A):
     """LU with partial pivoting of a single (M, M) matrix (scipy
-    lu_factor contract).  Dispatches to XLA's native decomposition when
-    supported; the hand-rolled loop covers float64-on-TPU only."""
-    if _use_native(A.dtype):
-        LU, piv = jsl.lu_factor(A)
-        # clamp numerically-singular pivots exactly like the custom path:
-        # LAPACK returns a zero diagonal for a singular basis and the
-        # subsequent solve would produce inf/nan; the simplex endgame
-        # wants "whatever accuracy survives" instead
-        d = jnp.diagonal(LU)
-        tiny = _tiny(LU.dtype)
-        d_fixed = jnp.where(jnp.abs(d) < tiny,
-                            jnp.where(d < 0, -tiny, tiny), d)
-        M = LU.shape[0]
-        LU = LU.at[jnp.arange(M), jnp.arange(M)].set(d_fixed)
-        return LU, piv
-    return _lu_factor_custom(A)
+    lu_factor contract: returns (LU, piv), row k swapped with piv[k])."""
+    LU, piv = jsl.lu_factor(A)
+    # clamp numerically-singular pivots: LAPACK returns a zero diagonal
+    # for a singular basis and the subsequent solve would produce
+    # inf/nan; the simplex endgame wants "whatever accuracy survives"
+    # instead, exactly like a drifted tableau would give
+    d = jnp.diagonal(LU)
+    tiny = _tiny(LU.dtype)
+    d_fixed = jnp.where(jnp.abs(d) < tiny,
+                        jnp.where(d < 0, -tiny, tiny), d)
+    M = LU.shape[0]
+    LU = LU.at[jnp.arange(M), jnp.arange(M)].set(d_fixed)
+    return LU, piv
 
 
 def lu_solve(lu_and_piv, b, trans: int = 0):
     """Solve A x = b (trans=0) or A^T x = b (trans=1) from lu_factor
     output.  ``b`` may be (M,) or (M, K)."""
-    LU, piv = lu_and_piv
-    if _use_native(LU.dtype):
-        return jsl.lu_solve((LU, piv), b, trans=trans)
-    return _lu_solve_custom((LU, piv), b, trans)
-
-
-def _lu_factor_custom(A):
-    """LU with partial pivoting of a single (M, M) matrix.
-
-    Returns (LU, piv): strictly-lower L factors and upper U packed in
-    one matrix, plus the pivot-row index chosen at each step.  Singular
-    pivots are clamped to a tiny signed value (the simplex callers treat
-    a numerically singular basis as "answer recovered at whatever
-    accuracy survives", exactly like a drifted tableau would).
-    """
-    M = A.shape[0]
-    idx = jnp.arange(M)
-
-    def body(k, carry):
-        LU, piv = carry
-        col = jnp.abs(LU[:, k])
-        col = jnp.where(idx >= k, col, -jnp.inf)
-        p = jnp.argmax(col).astype(jnp.int32)
-        piv = piv.at[k].set(p)
-        rowk = LU[k]
-        LU = LU.at[k].set(LU[p]).at[p].set(rowk)
-        d = LU[k, k]
-        tiny = _tiny(LU.dtype)
-        d = jnp.where(jnp.abs(d) < tiny,
-                      jnp.where(d < 0, -tiny, tiny), d)
-        lcol = jnp.where(idx > k, LU[:, k] / d, jnp.zeros((), LU.dtype))
-        urow = jnp.where(idx > k, LU[k], jnp.zeros((), LU.dtype))
-        LU = LU - lcol[:, None] * urow[None, :]
-        LU = LU.at[:, k].set(jnp.where(idx > k, lcol, LU[:, k]))
-        return LU, piv
-
-    piv0 = jnp.zeros(M, jnp.int32)
-    return jax.lax.fori_loop(0, M, body, (A, piv0))
-
-
-def _apply_piv(piv, b, reverse: bool):
-    """Apply (or undo) the row swaps recorded in ``piv`` to b (M, K)."""
-    M = piv.shape[0]
-
-    def body(i, b):
-        k = M - 1 - i if reverse else i
-        p = piv[k]
-        rowk = b[k]
-        return b.at[k].set(b[p]).at[p].set(rowk)
-
-    return jax.lax.fori_loop(0, M, body, b)
-
-
-def _lu_solve_custom(lu_and_piv, b, trans: int = 0):
-    LU, piv = lu_and_piv
-    M = LU.shape[0]
-    vec = b.ndim == 1
-    b = b[:, None] if vec else b
-    idx = jnp.arange(M)
-
-    if trans == 0:
-        b = _apply_piv(piv, b, reverse=False)
-
-        # forward: unit lower triangular
-        def fwd(k, y):
-            lcol = jnp.where(idx > k, LU[:, k], jnp.zeros((), LU.dtype))
-            return y - lcol[:, None] * y[k][None, :]
-
-        y = jax.lax.fori_loop(0, M, fwd, b)
-
-        # backward: upper triangular
-        def bwd(i, x):
-            k = M - 1 - i
-            xk = x[k] / LU[k, k]
-            ucol = jnp.where(idx < k, LU[:, k], jnp.zeros((), LU.dtype))
-            x = x - ucol[:, None] * xk[None, :]
-            return x.at[k].set(xk)
-
-        x = jax.lax.fori_loop(0, M, bwd, y)
-    else:
-        # A^T = (P^T L U)^T = U^T L^T P : solve U^T y = b, L^T z = y,
-        # then x = P^T z (undo the swaps in reverse order)
-        def fwd_t(k, y):
-            yk = y[k] / LU[k, k]
-            urow_t = jnp.where(idx > k, LU[k], jnp.zeros((), LU.dtype))
-            y = y - urow_t[:, None] * yk[None, :]
-            return y.at[k].set(yk)
-
-        y = jax.lax.fori_loop(0, M, fwd_t, b)
-
-        def bwd_t(i, z):
-            k = M - 1 - i
-            lrow_t = jnp.where(idx > k, LU[:, k], jnp.zeros((), LU.dtype))
-            return z.at[k].set(z[k] - jnp.sum(lrow_t[:, None] * z, axis=0))
-
-        z = jax.lax.fori_loop(0, M, bwd_t, y)
-        x = _apply_piv(piv, z, reverse=True)
-
-    return x[:, 0] if vec else x
+    return jsl.lu_solve(lu_and_piv, b, trans=trans)

@@ -81,12 +81,12 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
 
 def lib() -> ctypes.CDLL | None:
     """The loaded engine, or None when unavailable.  Set
-    BENSOLVE_TPU_NO_NATIVE=1 to force the pure-Python engine."""
+    BENSOLVE_NO_NATIVE=1 to force the pure-Python engine."""
     global _lib, _tried
     if _tried:
         return _lib
     _tried = True
-    if os.environ.get("BENSOLVE_TPU_NO_NATIVE"):
+    if os.environ.get("BENSOLVE_NO_NATIVE"):
         return None
     if _build():
         try:

@@ -1,7 +1,7 @@
 // Native polytope engine: adjacency/incidence graph surgery for the
 // dual-pair online vertex enumeration (the hot host-side core).
 //
-// The TPU build keeps vertex coordinates and bitmasks in Python-owned
+// This build keeps vertex coordinates and bitmasks in Python-owned
 // numpy buffers (shared here by pointer, rebindable after growth) and
 // stores the adjacency / facet-incidence lists natively.  The graph
 // mutations of a halfspace cut, the combinatorial edge test, and the

@@ -1,6 +1,6 @@
 """Multi-host execution of the Benson rounds.
 
-The reference is single-process (SURVEY.md section 2.2).  The TPU-native
+The reference is single-process (SURVEY.md section 2.2).  The batched
 model shards each round's frontier of scalarization LPs across
 processes, all-gathers the resulting cuts, and applies them to the
 REPLICATED polytope in a canonical order so every host's outer
@@ -9,8 +9,8 @@ replaces cut-insertion-order dependence (SURVEY.md section 5,
 "long-context" entry).
 
 On a single process everything degenerates to local compute; the same
-code runs under ``jax.distributed`` on a pod, where gathers ride the
-XLA collective runtime (ICI within a slice, DCN across slices).
+code runs under ``jax.distributed`` across processes, where gathers ride
+the XLA collective runtime.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 mesh.
 
 The reference is single-threaded with one mutable LP (bslv_lp.c:31); the
-TPU-native execution model instead treats each Benson round's frontier
+batched execution model instead treats each Benson round's frontier
 as a batch axis (SURVEY.md section 2.2):
 
 * ``dp`` (data parallel) — independent scalarization LPs of one round

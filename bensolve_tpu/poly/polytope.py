@@ -1,7 +1,7 @@
 """Dual-pair polytope engine: online vertex enumeration by incremental
 halfspace cutting.
 
-This is the TPU build's replacement for the reference's pointer-graph
+This is the array-first replacement for the reference's pointer-graph
 geometry core (bslv_poly.c).  It maintains a mutually dual pair of
 polytopes:
 
@@ -120,7 +120,7 @@ class Polytope:
     the adjacency and facet-incidence lists (and the graph surgery over
     them) live in the native C++ engine when it is available
     (bensolve_tpu/native/poly_engine.cpp), sharing these buffers by
-    pointer.  Set BENSOLVE_TPU_NO_NATIVE=1 for the pure-Python engine."""
+    pointer.  Set BENSOLVE_NO_NATIVE=1 for the pure-Python engine."""
 
     def __init__(self, dim: int, dim_primg: int = 0, cap: int = 64):
         self.dim = dim

@@ -24,7 +24,7 @@ class LPMethod(enum.Enum):
     algs/templates.py _run): DUAL_SIMPLEX / DUAL_PRIMAL_SIMPLEX select the
     batched dual simplex (with the GLP_DUALP-style dual->primal retry,
     lp/dual_simplex.py); PRIMAL_SIMPLEX and AUTO use the aspect-ratio
-    router over the tableau / revised / Pallas primal backends."""
+    router over the tableau / revised primal backends."""
 
     PRIMAL_SIMPLEX = "primal_simplex"
     DUAL_SIMPLEX = "dual_simplex"
@@ -64,27 +64,23 @@ class Options:
     eps_phase1: float = DEFAULT_EPS_PHASE1
     eps_benson_phase1: float = DEFAULT_EPS_BENSON_PHASE1  # -E
     eps_benson_phase2: float = DEFAULT_EPS_BENSON_PHASE2  # -e
-    # TPU-build specific knobs (no reference counterpart):
+    # batched-build knobs (no reference counterpart):
     lp_dtype: str = "float64"      # LP arithmetic: float64 (GLPK-grade
-    #   tolerances) or float32 (native TPU arithmetic; use with loose
-    #   epsilons, e.g. the reference's own -e 0.05 / 1e-2 advice for
-    #   the large ex07/ex09 instances, ex/example07.m:9)
+    #   tolerances) or float32 (use with loose epsilons, e.g. the
+    #   reference's own -e 0.05 / 1e-2 advice for its large instances,
+    #   ex/example07.m:9)
     write_files: bool = True       # emit the .sol/.log artifact family
     poly_test: bool = False        # run polytope integrity checks (POLY_TEST)
     lp_max_batch: int = 4096       # cap on LPs solved per device round
     lp_ipm_min: int = 0            # M+N threshold above which Benson LP
     #   batches route to the Mehrotra interior-point backend (lp/ipm.py)
     #   instead of the simplex family.  0 disables (simplex everywhere).
-    #   The huge reference examples (ex09: m=4608, n=36939) are
-    #   pivot-count-bound on every simplex variant; the recorded route
-    #   uses lp_ipm_min=2000 with lp_dtype="float32" and the reference's
-    #   own -e 1e-2 (ex/example09.m:10,21).  Equivalent env override:
-    #   BENSOLVE_IPM_MIN.
+    #   Huge instances (m=4608, n=36939) are pivot-count-bound on every
+    #   simplex variant.  Equivalent env override: BENSOLVE_IPM_MIN.
     warm_mode: str = "auto"        # LP warm starts across Benson rounds:
     #   "per_candidate" seeds every frontier LP from the basis of the LP
     #   whose cut created it, "shared" carries one basis per template,
-    #   "auto" picks per-candidate unless the batch routes to the Pallas
-    #   kernel or runs distributed
+    #   "auto" picks per-candidate unless the solve runs distributed
     checkpoint_path: str = ""      # snapshot phase-2 state here per round
     checkpoint_every: int = 1      # rounds between snapshots
     profile_dir: str = ""          # write a jax.profiler trace here

@@ -45,6 +45,12 @@ def _bound_lines(tag: str, lb: np.ndarray, ub: np.ndarray) -> list[str]:
 
 def write_vlp(prob: VLPProblem, path: str) -> None:
     """Write ``prob`` as a .vlp file (grammar per bslv_vlp.c:275-588)."""
+    with open(path, "w") as fh:
+        fh.write(vlp_text(prob))
+
+
+def vlp_text(prob: VLPProblem) -> str:
+    """``prob`` in the .vlp grammar, as the text write_vlp writes."""
     m, n, q = prob.m, prob.n, prob.q
     a_lines = _coeff_lines("a", prob.A)
     o_lines = _coeff_lines("o", prob.P)
@@ -67,5 +73,4 @@ def write_vlp(prob: VLPProblem, path: str) -> None:
     lines += _bound_lines("i", prob.rows.lb, prob.rows.ub)
     lines += _bound_lines("j", prob.cols.lb, prob.cols.ub)
     lines.append("e")
-    with open(path, "w") as fh:
-        fh.write("\n".join(lines) + "\n")
+    return "\n".join(lines) + "\n"

@@ -9,14 +9,15 @@ Usage:
 
 CPU virtual mesh:  XLA_FLAGS=--xla_force_host_platform_device_count=8
                    JAX_PLATFORMS=cpu python scale_many.py 10000 --mesh
-TPU (one chip):    python scale_many.py 10000
+One GPU:           python scale_many.py 10000
 """
 
 import collections
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def main() -> None:
@@ -24,16 +25,13 @@ def main() -> None:
     n_inst = int(args[0]) if args else 10000
     use_mesh = "--mesh" in sys.argv
 
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
     from bensolve_tpu.algs.many import solve_many
     from bensolve_tpu.examples import random_vlp
+    from bensolve_tpu.lp import ensure_compile_cache
     from bensolve_tpu.parallel.mesh import make_mesh
     from bensolve_tpu.vlp.options import Options
 
+    ensure_compile_cache()
     t0 = time.time()
     vlps = [random_vlp(q=3, m=10, n=8, seed=s) for s in range(n_inst)]
     print(f"generated {n_inst} instances in {time.time()-t0:.1f}s",

@@ -48,9 +48,9 @@ def main() -> None:
     elif mode in ("solve", "solve_dual"):
         from bensolve_tpu.algs.driver import solve
         from bensolve_tpu.vlp.options import Alg, Options
-        from bensolve_tpu.vlp.reader import read_vlp
+        from bensolve_tpu import examples
 
-        vlp = read_vlp("/root/reference/ex/ex05.vlp")
+        vlp = examples.load("ex05")
         opt = Options(distributed=True, write_files=False)
         if mode == "solve_dual":
             opt.alg_phase1 = opt.alg_phase2 = Alg.DUAL

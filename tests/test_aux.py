@@ -5,15 +5,13 @@ import glob
 
 import numpy as np
 
+from bensolve_tpu import examples
 from bensolve_tpu.algs.driver import solve
 from bensolve_tpu.vlp.options import Options
-from bensolve_tpu.vlp.reader import read_vlp
-
-EX = "/root/reference/ex"
 
 
 def test_deterministic_across_runs():
-    vlp = read_vlp(f"{EX}/ex05.vlp")
+    vlp = examples.load("ex05")
     r1 = solve(vlp, Options())
     r2 = solve(vlp, Options())
     # bit-identical vertex sets, not just epsilon-close
@@ -25,7 +23,7 @@ def test_deterministic_across_runs():
 
 
 def test_profile_trace(tmp_path):
-    vlp = read_vlp(f"{EX}/ex01.vlp")
+    vlp = examples.load("ex01")
     r = solve(vlp, Options(profile_dir=str(tmp_path)))
     assert r.status.name == "OPTIMAL"
     assert glob.glob(str(tmp_path / "**" / "*.trace*"), recursive=True) or \
@@ -37,7 +35,7 @@ def test_message_levels(capsys):
     """-m 3 prints per-LP/per-cut progress lines (bslv_algs.c:877,888)
     plus per-round summaries; -M 2 makes the LP layer emit batch
     summaries (the lp_message_level analogue, bslv_lp.c:200-215)."""
-    vlp = read_vlp(f"{EX}/ex01.vlp")
+    vlp = examples.load("ex01")
     solve(vlp, Options(message_level=3, lp_message_level=2))
     out = capsys.readouterr().out
     assert "process primal vertex - solve lp" in out
@@ -50,11 +48,11 @@ def test_message_levels(capsys):
     assert "lp_solve" not in capsys.readouterr().out
 
 
-def test_stdout_listing(capsys):
+def test_stdout_listing(capsys, ex_dir):
     from bensolve_tpu.algs.driver import solve_file
     import tempfile, os
     with tempfile.TemporaryDirectory() as d:
-        solve_file(f"{EX}/ex01.vlp",
+        solve_file(f"{ex_dir}/ex01.vlp",
                    Options(filename=os.path.join(d, "x"), message_level=1))
     out = capsys.readouterr().out
     assert "Upper image of primal problem:" in out
@@ -66,7 +64,7 @@ def test_distributed_mode_single_process():
     applied in canonical order; deterministic and epsilon-correct."""
     from tests.test_e2e import check_support
 
-    vlp = read_vlp(f"{EX}/ex05.vlp")
+    vlp = examples.load("ex05")
     r1 = solve(vlp, Options(distributed=True))
     r2 = solve(vlp, Options(distributed=True))
     assert r1.status.name == "OPTIMAL"

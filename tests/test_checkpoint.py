@@ -1,14 +1,12 @@
-"""Round-level checkpoint / resume (TPU-build subsystem; the reference
+"""Round-level checkpoint / resume (batched-build subsystem; the reference
 has none, SURVEY.md section 5)."""
 
 import numpy as np
 
+from bensolve_tpu import examples
 from bensolve_tpu.algs.driver import solve
 from bensolve_tpu.algs.solution import SolStatus
 from bensolve_tpu.vlp.options import Alg, Options
-from bensolve_tpu.vlp.reader import read_vlp
-
-EX = "/root/reference/ex"
 
 
 def _vset(r):
@@ -17,7 +15,7 @@ def _vset(r):
 
 def test_checkpoint_resume_matches(tmp_path):
     ck = str(tmp_path / "st.ckpt")
-    vlp = read_vlp(f"{EX}/ex05.vlp")
+    vlp = examples.load("ex05")
     r1 = solve(vlp, Options(checkpoint_path=ck))
     assert r1.status is SolStatus.OPTIMAL
     r2 = solve(vlp, Options(), resume=ck)
@@ -33,7 +31,7 @@ def test_phase1_checkpoint_resume(tmp_path, monkeypatch):
     from bensolve_tpu.io import checkpoint as ckpt
 
     ck = str(tmp_path / "p1.ckpt")
-    vlp = read_vlp(f"{EX}/ex05.vlp")
+    vlp = examples.load("ex05")
     ref = solve(vlp, Options())
 
     real = ckpt.save_checkpoint
@@ -58,7 +56,7 @@ def test_phase1_checkpoint_resume(tmp_path, monkeypatch):
 
 def test_checkpoint_resume_dual_alg(tmp_path):
     ck = str(tmp_path / "st.ckpt")
-    vlp = read_vlp(f"{EX}/ex01.vlp")
+    vlp = examples.load("ex01")
     r1 = solve(vlp, Options(checkpoint_path=ck, alg_phase1=Alg.DUAL,
                             alg_phase2=Alg.DUAL))
     assert r1.status is SolStatus.OPTIMAL

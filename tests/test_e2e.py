@@ -1,102 +1,24 @@
 """End-to-end acceptance tests on the reference example suite
-(/root/reference/ex, the behavior matrix of SURVEY.md section 4).
+(generated by bensolve_tpu.examples; the behavior matrix of SURVEY.md
+section 4).
 
-Correctness oracle: support-function equality.  For the canonical min
-problem, the upper image U = P[feasible] + C has support value
-h(w) = min_x w'P_eff x for every w in C*.  The solver's epsilon-solution
-(points V, directions D) must satisfy min_{y in V} w'y == h(w) within
-epsilon for sampled w in the interior of C*, and every direction must
-have nonnegative support against such w.  h(w) is computed independently
-with scipy/HiGHS.
+Correctness oracle: support-function equality against scipy/HiGHS
+(bensolve_tpu.oracle.check_support).
 """
 
 import numpy as np
 import pytest
-from scipy.optimize import linprog
 
+from bensolve_tpu import examples
 from bensolve_tpu.algs.driver import solve
 from bensolve_tpu.algs.solution import SolStatus
+from bensolve_tpu.oracle import check_support
 from bensolve_tpu.vlp.options import Alg, Options
 from bensolve_tpu.vlp.problem import VLPProblem
-from bensolve_tpu.vlp.reader import read_vlp
-
-EX = "/root/reference/ex"
-
-
-def scalarized_min(vlp, P_eff, w):
-    """min w'P_eff x over the VLP feasible set, via scipy (HiGHS)."""
-    m, n = vlp.A.shape
-    A_ub, b_ub, A_eq, b_eq = [], [], [], []
-    for i in range(m):
-        lo, hi = vlp.rows.lb[i], vlp.rows.ub[i]
-        if np.isfinite(lo) and lo == hi:
-            A_eq.append(vlp.A[i]); b_eq.append(lo)
-        else:
-            if np.isfinite(hi):
-                A_ub.append(vlp.A[i]); b_ub.append(hi)
-            if np.isfinite(lo):
-                A_ub.append(-vlp.A[i]); b_ub.append(-lo)
-    kw = {}
-    if A_ub:
-        kw["A_ub"], kw["b_ub"] = np.array(A_ub), np.array(b_ub)
-    if A_eq:
-        kw["A_eq"], kw["b_eq"] = np.array(A_eq), np.array(b_eq)
-    res = linprog(w @ P_eff, bounds=list(zip(vlp.cols.lb, vlp.cols.ub)),
-                  method="highs", **kw)
-    if res.status == 3:
-        return -np.inf
-    assert res.status == 0, res.message
-    return res.fun
-
-
-def canonical_P(vlp, sol):
-    """P of the canonical min/c_q>0 problem (sign flips of
-    bslv_vlp.c:856-861)."""
-    flip = (sol.c_dir.value < 0) == (vlp.optdir == 1)
-    return (-vlp.P if flip else vlp.P).astype(float)
-
-
-def canonical_points(result):
-    """Solution points/directions mapped back to canonical min form
-    (undo poly_trans_primal/dual output transforms)."""
-    vlp, sol = result.vlp, result.sol
-    pts = result.primal_points.copy()
-    dirs = result.primal_directions.copy()
-    pos = sol.c_dir.value > 0
-    if pos and vlp.optdir == -1 or (not pos and vlp.optdir == 1):
-        pts, dirs = -pts, -dirs
-    return pts, dirs
-
-
-def check_support(result, n_samples=64, tol=1e-7):
-    """Support-function oracle.  Default tol matches the reference's
-    Benson epsilon contract EPS_BENSON = 1e-7 (bslv_main.h:74-78) for
-    the float64 default path; float32 / loose-eps call sites pass an
-    explicit looser tol."""
-    vlp, sol = result.vlp, result.sol
-    P_eff = canonical_P(vlp, sol)
-    pts, dirs = canonical_points(result)
-    assert pts.shape[0] > 0
-    rng = np.random.default_rng(0)
-    q = vlp.q
-    for _ in range(n_samples):
-        lam = rng.random(sol.p) + 1e-3
-        w = sol.Z @ lam
-        w = w / np.abs(w).sum()
-        h_true = scalarized_min(vlp, P_eff, w)
-        h_hat = float(np.min(pts @ w))
-        scale = 1 + abs(h_true) if np.isfinite(h_true) else 1.0
-        if dirs.size and np.min(dirs @ w) < -1e-9:
-            h_hat = -np.inf  # unbounded along a computed direction
-        if not np.isfinite(h_true):
-            assert not np.isfinite(h_hat), (w, h_hat)
-        else:
-            assert abs(h_hat - h_true) <= tol * scale, (w, h_hat, h_true)
 
 
 def run(ex, **opt_kw):
-    vlp = read_vlp(f"{EX}/{ex}.vlp")
-    return solve(vlp, Options(**opt_kw))
+    return solve(examples.load(ex), Options(**opt_kw))
 
 
 def test_ex01_exact():
@@ -237,27 +159,9 @@ def test_dual_warm_resolve_cuts_pivots(monkeypatch):
         (r_new.stats, r_old.stats)
 
 
-def test_pallas_kernel_in_solver(monkeypatch):
-    """The production Benson path must execute the Pallas kernel when
-    float32 LPs are requested on a TPU backend (forced to interpret
-    mode here): VERDICT r1 item 2 — the flagship kernel is the solver's
-    hot path, not just bench.py's."""
-    from bensolve_tpu.lp import pallas_simplex
-
-    monkeypatch.setenv("BENSOLVE_FORCE_PALLAS", "1")
-    before = pallas_simplex.CALLS
-    r = run("ex01", lp_dtype="float32",
-            eps_benson_phase1=1e-4, eps_benson_phase2=1e-4)
-    assert r.status is SolStatus.OPTIMAL
-    assert pallas_simplex.CALLS > before, \
-        "Benson solve did not route through the Pallas kernel"
-    got = sorted(map(tuple, np.round(r.primal_points, 4)))
-    assert got == [(-6.0, 6.0), (0.0, 4.0)]
-
-
 def test_bounded_shortcut():
     # ex01 restricted to a box is bounded; -b skips phases 0 and 1
-    vlp = read_vlp(f"{EX}/ex01.vlp")
+    vlp = examples.load("ex01")
     vlp.cols.ub[:] = 50.0
     vlp.cols.types[:] = "d"
     r = solve(vlp, Options(bounded=True))
@@ -302,10 +206,10 @@ def test_poly_test_option():
     assert r.message == ""  # no invariant violations
 
 
-def test_plot_output(tmp_path):
+def test_plot_output(tmp_path, ex_dir):
     from bensolve_tpu.algs.driver import solve_file
     base = str(tmp_path / "ex05")
-    r = solve_file(f"{EX}/ex05.vlp", Options(plot=True, filename=base))
+    r = solve_file(f"{ex_dir}/ex05.vlp", Options(plot=True, filename=base))
     assert r.status is SolStatus.OPTIMAL
     off = open(base + "_p.off").read().splitlines()
     assert off[0] == "OFF"
@@ -322,7 +226,7 @@ def test_plot_output(tmp_path):
     assert (tmp_path / "ex05_d.off").exists()
     # dual algorithm produces the role-swapped plots too
     base2 = str(tmp_path / "ex05b")
-    r2 = solve_file(f"{EX}/ex05.vlp",
+    r2 = solve_file(f"{ex_dir}/ex05.vlp",
                     Options(plot=True, filename=base2,
                             alg_phase1=Alg.DUAL, alg_phase2=Alg.DUAL))
     assert r2.status is SolStatus.OPTIMAL

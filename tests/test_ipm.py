@@ -127,10 +127,10 @@ def test_ipm_e2e_driver_route(monkeypatch):
     from bensolve_tpu.algs.driver import solve
     from bensolve_tpu.algs.solution import SolStatus
     from bensolve_tpu.vlp.options import Options
-    from bensolve_tpu.vlp.reader import read_vlp
+    from bensolve_tpu import examples
 
     for ex in ("ex05", "ex08", "ex11"):
-        vlp = read_vlp(f"/root/reference/ex/{ex}.vlp")
+        vlp = examples.load(ex)
         monkeypatch.delenv("BENSOLVE_IPM_MIN", raising=False)
         r_s = solve(vlp, Options(write_files=False))
         monkeypatch.setenv("BENSOLVE_IPM_MIN", "1")
@@ -149,12 +149,12 @@ def test_ipm_e2e_status_examples(monkeypatch):
     from bensolve_tpu.algs.driver import solve
     from bensolve_tpu.algs.solution import SolStatus
     from bensolve_tpu.vlp.options import Options
-    from bensolve_tpu.vlp.reader import read_vlp
+    from bensolve_tpu import examples
 
     monkeypatch.setenv("BENSOLVE_IPM_MIN", "1")
-    assert solve(read_vlp("/root/reference/ex/ex02.vlp"),
+    assert solve(examples.load("ex02"),
                  Options(write_files=False)).status is SolStatus.INFEASIBLE
-    assert solve(read_vlp("/root/reference/ex/ex04.vlp"),
+    assert solve(examples.load("ex04"),
                  Options(write_files=False)).status is SolStatus.UNBOUNDED
 
 

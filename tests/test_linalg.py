@@ -1,5 +1,5 @@
-"""Unit tests for the dtype-agnostic batched LU (lp/linalg.py), the
-replacement for XLA's f32-only LuDecomposition custom-call."""
+"""Unit tests for the LU wrapper of the simplex endgame (lp/linalg.py):
+jax.scipy.linalg with a clamp of singular pivots."""
 
 import jax
 import jax.numpy as jnp
@@ -55,3 +55,28 @@ def test_lu_batched_vmap():
     for i in range(B):
         np.testing.assert_allclose(x[i], np.linalg.solve(A[i], b[i]),
                                     rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_lu_singular_clamped_finite(dtype):
+    """An exactly singular matrix factorizes with its zero pivot clamped
+    to a tiny signed value, so the solve is finite (the simplex endgame
+    recovers 'whatever accuracy survives' from a singular basis)."""
+    A = np.array([[1.0, 2.0, 3.0], [2.0, 4.0, 6.0], [1.0, 0.0, 1.0]],
+                 dtype)
+    lu, piv = jax.jit(linalg.lu_factor)(jnp.asarray(A))
+    assert lu.dtype == dtype
+    d = np.abs(np.diagonal(np.asarray(lu)))
+    assert d.min() > 0
+    x = np.asarray(linalg.lu_solve((lu, piv), jnp.ones(3, dtype)))
+    assert np.all(np.isfinite(x))
+
+
+def test_lu_f64_matches_jax_scipy():
+    """On a regular matrix the wrapper is exactly jax.scipy.linalg."""
+    rng = np.random.default_rng(3)
+    A = jnp.asarray(rng.standard_normal((9, 9)) + 9 * np.eye(9))
+    lu, piv = linalg.lu_factor(A)
+    lu_ref, piv_ref = jax.scipy.linalg.lu_factor(A)
+    np.testing.assert_array_equal(np.asarray(lu), np.asarray(lu_ref))
+    np.testing.assert_array_equal(np.asarray(piv), np.asarray(piv_ref))

@@ -47,9 +47,9 @@ def _run_engine(no_native: bool, seed: int, dim: int, n: int):
     """Run _random_cone_pair in a subprocess with/without the native
     engine (the choice is process-global) and return its snapshot."""
     env = dict(os.environ)
-    env.pop("BENSOLVE_TPU_NO_NATIVE", None)
+    env.pop("BENSOLVE_NO_NATIVE", None)
     if no_native:
-        env["BENSOLVE_TPU_NO_NATIVE"] = "1"
+        env["BENSOLVE_NO_NATIVE"] = "1"
     env["JAX_PLATFORMS"] = "cpu"
     code = f"""
 import sys
@@ -93,7 +93,7 @@ def test_native_engine_is_active_and_check_runs():
     assert ok
     assert pair.primal.native
     native_errs = pair.check()
-    env = dict(os.environ, BENSOLVE_TPU_NO_NATIVE="1", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, BENSOLVE_NO_NATIVE="1", JAX_PLATFORMS="cpu")
     code = """
 import sys
 sys.path.insert(0, %r)

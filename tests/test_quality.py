@@ -9,8 +9,8 @@ bslv_lp.c:219-259):
   candidate in a later round) instead of cutting with ~1e-2-error
   duals, and accepts only after the retry budget — planted loose
   flags must leave the final vertex set unchanged.
-* Segmented tableau/dual-simplex device loops (the round-4 TPU worker
-  crash fix) return identical results to the single-program form.
+* Segmented tableau/dual-simplex device loops return identical results
+  to the single-program form.
 """
 
 import numpy as np

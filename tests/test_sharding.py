@@ -89,11 +89,11 @@ def test_mesh_axes_end_to_end_solve():
     solve exactly."""
     from bensolve_tpu.algs.driver import solve
     from bensolve_tpu.vlp.options import Options
-    from bensolve_tpu.vlp.reader import read_vlp
+    from bensolve_tpu import examples
 
-    vlp = read_vlp("/root/reference/ex/ex05.vlp")
+    vlp = examples.load("ex05")
     ref = solve(vlp, Options(write_files=False))
-    got = solve(read_vlp("/root/reference/ex/ex05.vlp"),
+    got = solve(examples.load("ex05"),
                 Options(write_files=False, mesh_axes=("dp", "tp")))
     assert got.status.name == "OPTIMAL"
 

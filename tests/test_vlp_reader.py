@@ -43,12 +43,10 @@ def test_ex06_dualcone_max(ex_dir):
 
 def test_all_examples_parse(ex_dir):
     sizes = {}
-    for k in range(1, 12):
+    for k in (1, 2, 3, 4, 5, 6, 8, 10, 11):
         name = f"ex{k:02d}.vlp"
         p = read_vlp(os.path.join(ex_dir, name))
         sizes[name] = (p.m, p.n, p.q)
-    assert sizes["ex07.vlp"] == (1211, 1143, 3)
-    assert sizes["ex09.vlp"] == (4608, 36939, 3)
     assert sizes["ex10.vlp"] == (343, 343, 3)
     assert sizes["ex11.vlp"] == (31, 5, 5)
 
